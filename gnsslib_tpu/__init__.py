@@ -1,4 +1,4 @@
-"""gnsslib_tpu — a TPU-native GNSS software-defined-radio receiver framework.
+"""gnsslib_tpu — a JAX-native GNSS software-defined-radio receiver framework.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of
 erlangnetwork-gnsslib-sdr (GNSS-SDRLIB fork): FFT-based acquisition,
@@ -6,12 +6,12 @@ multi-correlator DLL/PLL/FLL closed-loop tracking, navigation-message
 decoding (GPS L1CA, GLONASS G1, SBAS L1), and pseudorange / carrier-phase /
 Doppler / SNR observable generation with RINEX 3.02 and RTCM3 output.
 
-Architecture (TPU-first, not a port of the reference's pthread design):
+Architecture (accelerator-first, not a port of the reference's pthread design):
 
 * ``codes``    — PRN ranging-code generators (pure NumPy, precomputed to
                  device arrays).  Reference: src/sdrcode.c.
 * ``ops``      — the DSP kernel library: batched carrier wipe-off, code
-                 resampling, multi-tap correlators (MXU einsum + Pallas),
+                 resampling, multi-tap correlators (batched einsum),
                  batched FFT correlation.  Reference: src/sdrcmn.c.
 * ``acquire``  — (channel, doppler, code-phase) parallel search with
                  non-coherent integration, jit-compiled & shardable.
@@ -40,40 +40,49 @@ Architecture (TPU-first, not a port of the reference's pthread design):
 
 __version__ = "0.1.0"
 
+import hashlib as _hashlib
 import os as _os
+import platform as _platform
 
-# Persistent XLA compilation cache: first-compile of the acquisition /
-# tracking programs can take minutes (especially via the TPU
-# remote-compile path); cache them across processes.  Opt out with
-# GNSSLIB_TPU_NO_CACHE=1.
-def _default_cache_dir() -> str:
-    """Machine-keyed cache path: XLA:CPU AOT entries bake in the host's
-    CPU feature set, and a cache written on one machine SIGILLs (or
-    error-spams) on another — key the directory by a CPU-flags hash."""
-    import hashlib
-    import platform
-    key = platform.machine()
+import jax as _jax
+
+
+def _cpu_key() -> str:
+    """Host key for the in-checkout cache: XLA:CPU cache entries bake in
+    the host's CPU feature set, and an entry written on one machine SIGILLs
+    (or error-spams) on another — so the directory is split by a hash of
+    the CPU flags."""
+    key = _platform.machine()
     try:
         with open("/proc/cpuinfo") as f:
             for line in f:
                 if line.startswith(("flags", "Features")):
-                    key += "_" + hashlib.sha1(
+                    key += "_" + _hashlib.sha1(
                         line.encode()).hexdigest()[:10]
                     break
-    except OSError:              # pragma: no cover - non-Linux
+    except FileNotFoundError:    # pragma: no cover - non-Linux
         pass
-    return _os.path.expanduser(f"~/.cache/gnsslib_tpu_xla_{key}")
+    return key
 
 
-if not _os.environ.get("GNSSLIB_TPU_NO_CACHE"):
-    try:
-        import jax as _jax
-        _jax.config.update(
-            "jax_compilation_cache_dir",
-            _os.environ.get("GNSSLIB_TPU_CACHE_DIR",
-                            _default_cache_dir()))
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:            # pragma: no cover - jax-less install
-        pass
+def cache_dir() -> str | None:
+    """Persistent XLA compilation-cache directory this package sets.
+
+    None when ``JAX_COMPILATION_CACHE_DIR`` is set: JAX reads that
+    variable itself and no other directory is set in code.  Otherwise a
+    fixed directory inside the checkout (``.jax_cache/``, git-ignored),
+    keyed by the host CPU (see :func:`_cpu_key`)."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    return _os.path.join(root, ".jax_cache", _cpu_key())
+
+
+# first compiles of the acquisition / tracking programs take seconds to
+# minutes; cache them across processes
+_cache_dir = cache_dir()
+if _cache_dir is not None:
+    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from . import constants  # noqa: F401,E402

@@ -3,7 +3,7 @@
 Mirrors the constant surface of the reference header (reference:
 src/sdr.h:101-242) so every capability knob of the original receiver has a
 named equivalent, while dropping pthread/plotting plumbing that has no
-meaning in a functional TPU design.
+meaning in a functional JAX design.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 The reference streams acquisition surfaces / correlator shapes / spectra
 to interactive gnuplot windows (src/sdrplot.c:336-394, driven from
-src/sdrmain.c:258-299).  A headless TPU run has no display server, so
+src/sdrmain.c:258-299).  A headless server run has no display server, so
 the graphical equivalent is a self-contained HTML page rewritten in
 place at the SPEC_MS cadence: open it in any browser (``file://`` is
 enough) and it re-reads itself via ``<meta http-equiv=refresh>``.

@@ -3,7 +3,7 @@
 Reference: src/sdrspec.c — 3-bit sample histogram (calchistgram :170) and
 a Welch-style power spectrum from ``SPEC_NLOOP`` random-offset Hanning
 windows of ``SPEC_NFFT`` points (spectrumanalyzer :232).  Device compute
-(batched FFT on TPU), arrays back to the host.
+(batched FFT on the device), arrays back to the host.
 """
 from __future__ import annotations
 

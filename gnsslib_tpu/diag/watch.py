@@ -2,7 +2,7 @@
 
 The reference streams acquisition surfaces / correlator shapes / spectra
 to interactive gnuplot windows during the run (src/sdrplot.c:336-394,
-driven from the main loop src/sdrmain.c:258-299).  A headless TPU run
+driven from the main loop src/sdrmain.c:258-299).  A headless server run
 has no display server, so the operator-facing live view is a terminal
 dashboard instead: one table of lock / C/N0 / Doppler / nav / observable
 state per channel, refreshed at the SPEC_MS cadence of STREAM time.

@@ -3,7 +3,7 @@
 Reference: src/sdrrcv.c (dispatch + ring buffer) and src/rcv/* (drivers).
 Every hardware driver in the reference has a file-replay twin reading the
 same byte format (SURVEY.md §4) — that deterministic replay contract is
-the part that matters for a post-processing TPU receiver, so the drivers'
+the part that matters for a post-processing receiver, so the drivers'
 sample-format handling is reproduced exactly.  Live capture runs the
 vendor CLI as an external grabber process feeding a host ring buffer
 (io.live.ProcessFrontend) — the in-process pthread grabber re-expressed

@@ -5,7 +5,7 @@ Replaces the reference's grabber-thread + 327 MB ring buffer
 sample index (the reference's ``buffcnt*fendbuffsize`` global clock,
 src/sdr.h:328) is preserved as the receiver timebase.  Real-time pacing
 (sleepms(5) per 64 KB push, sdrrcv.c:389-390) is a replay artifact and is
-dropped; the TPU receiver is throughput-bound, not wall-clock-paced.
+dropped; the receiver is throughput-bound, not wall-clock-paced.
 """
 from __future__ import annotations
 

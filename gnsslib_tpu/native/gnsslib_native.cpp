@@ -3,7 +3,7 @@
 // The reference links native libraries for exactly these jobs: ka9q-fec's
 // Viterbi27 (SBAS FEC, src/sdrnav.c:288-318), RTKLIB's CRC utilities
 // (rtkcmn.c), and the front-end drivers' sample expansion loops
-// (src/rcv/*).  This file provides TPU-framework equivalents as a small
+// (src/rcv/*).  This file provides this framework's equivalents as a small
 // C++ library loaded via ctypes; every entry point has a NumPy fallback
 // in gnsslib_tpu/native/__init__.py with identical semantics.
 //

@@ -2,7 +2,7 @@
 
 The reference computes 1+2*corrn serial int16 dot products per channel per
 millisecond.  Here all taps for all channels become one batched contraction
-(``einsum``) that XLA tiles onto the MXU, with the tap-shifted code
+(``einsum``) that XLA tiles onto the matrix units, with the tap-shifted code
 replicas taken as static slices of one extended resampled code vector.
 
 Tap order matches the reference (src/sdrcmn.c:712-715, sdrinit.c:442-450):
@@ -11,6 +11,7 @@ Tap order matches the reference (src/sdrcmn.c:712-715, sdrinit.c:442-450):
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -54,10 +55,13 @@ def correlate_taps(mixed, code_ext, offsets, smax: int, nvalid):
         [jax_slice(code_ext, smax + int(o), nwin) for o in np.asarray(offsets)],
         axis=-2,
     )  # (..., ntaps, nwin)
-    # real-valued MXU contraction: (taps, n) x (n, 2[re,im]) per batch elem
+    # real-valued contraction: (taps, n) x (n, 2[re,im]) per batch elem,
+    # in full float32 (the GPU would otherwise round the carrier-wiped
+    # samples to TF32)
     iq = jnp.stack([masked.real, masked.imag], axis=-1)  # (..., nwin, 2)
     out = jnp.einsum("...tn,...nr->...tr", reps, iq,
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=jax.lax.Precision.HIGHEST)
     return jax_complex(out[..., 0], out[..., 1])
 
 

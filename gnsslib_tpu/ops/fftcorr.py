@@ -2,8 +2,7 @@
 src/sdrcmn.c:216-251, 723-773).
 
 P(lag) = |IFFT(FFT(mixed_data) · conj(FFT(code)))|² / nfft², batched over
-Doppler bins (and channels at the caller).  Differences from the reference,
-chosen for TPU:
+Doppler bins (and channels at the caller).  Differences from the reference:
 
 * nfft is rounded up to a power of two (the reference uses exactly
   2*nsamp, src/sdrinit.c:625).  Both zero-pad beyond the 2*nsamp data, so

@@ -1,6 +1,6 @@
 """Multi-chip scaling: device meshes + channel/Doppler sharding.
 
-Reference parallelism -> TPU mapping (SURVEY.md §2.4):
+Reference parallelism -> device mapping (SURVEY.md §2.4):
 * one pthread per satellite channel  -> channel axis sharded over devices
 * serial Doppler-bin loop            -> batched on device, shardable axis
 * FFTW thread pool                   -> XLA batched FFT

@@ -1,7 +1,7 @@
 """Multi-host scaling helpers.
 
 The reference is strictly single-process (SURVEY.md §2.4: no distributed
-backend).  The TPU framework scales across hosts with `jax.distributed`:
+backend).  This framework scales across hosts with `jax.distributed`:
 every process runs the same receiver program on its channel shard of a
 global ``(hosts*devices,)`` mesh; the IF block is broadcast (each host
 reads the same file/stream), and observable fan-in happens on process 0
@@ -19,9 +19,9 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialize jax.distributed (no-op for single-process runs).
 
-    With no arguments, relies on the cluster environment (TPU pod
-    metadata); pass coordinator/num_processes/process_id explicitly for
-    manual multi-host CPU/GPU runs.
+    With no arguments, relies on a cluster environment that JAX can
+    detect; pass coordinator/num_processes/process_id explicitly where
+    there is none (CPU processes, GPU hosts without a cluster manager).
     """
     if num_processes is None and coordinator is None:
         try:

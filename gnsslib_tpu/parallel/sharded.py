@@ -22,9 +22,7 @@ except ImportError:                      # pragma: no cover - older jax
 
 def shard_map(f, **kw):
     """shard_map with varying-mesh-axes checking off: the compute path
-    has ZERO collectives (channels are independent), and pallas_call
-    outputs don't declare `vma`, which newer jax would otherwise reject
-    under the default check_vma=True."""
+    has ZERO collectives (channels are independent)."""
     try:
         return _shard_map(f, check_vma=False, **kw)
     except TypeError:                    # pragma: no cover - older jax
@@ -144,12 +142,10 @@ class ShardedFastTracker:
     def __init__(self, fast, mesh: Mesh, axis: str = "ch"):
         n = mesh.shape[axis]
         self.fast = fast
-        # the band-resident kernel runs unchanged under shard_map: its
-        # shapes key off the LOCAL channel count (track/fast.py run_steps
-        # reads geo["q_idx"].shape) and its VMEM footprint (corr setter)
-        # depends only on L/n_nom/nwin, not C — each device places its
-        # own band over its channel shard's windows.  Validated against
-        # the unsharded program in tests/test_parallel.py.
+        # the correlators run unchanged under shard_map: their shapes key
+        # off the LOCAL channel count (track/fast.py run_steps reads
+        # geo["q_idx"].shape).  Validated against the unsharded program
+        # in tests/test_parallel.py.
         self.trk = fast.trk
         self.L = fast.L
         self.mesh = mesh
@@ -308,8 +304,15 @@ class ShardedAcquirer:
             out_specs=(P(ax),) * 6))
 
     def search(self, data: np.ndarray) -> AcqResult:
+        return self.search_collect(self.search_start(data))
+
+    def search_start(self, data: np.ndarray):
+        """Dispatch the search on host samples without reading the
+        decision: returns a handle for :meth:`search_collect` (the
+        Receiver decides a pipelined search blocks later).  The Doppler
+        mode assembles its power surface on the host, so it completes
+        here."""
         import jax.numpy as jnp
-        C = self.acq.C
         rounds = jnp.asarray(self.acq.stack_rounds(data))
         if self.mode == "freq":
             Ph = self._fn_power(rounds, self._dcp_pad, self._consts)
@@ -320,6 +323,11 @@ class ShardedAcquirer:
         else:
             _, codei, freqi, cn0, peakr, confirmed = self._fn(
                 rounds, self._consts)
+        return codei, freqi, cn0, peakr, confirmed
+
+    def search_collect(self, handle) -> AcqResult:
+        codei, freqi, cn0, peakr, confirmed = handle
+        C = self.acq.C
         if jax.process_count() > 1:
             # multi-controller: every host needs every channel's decision
             # (each host runs the same receiver logic on the global view)

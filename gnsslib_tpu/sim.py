@@ -372,3 +372,71 @@ def quantize_geph(geph) -> None:
     geph.taun = round(geph.taun / P2_30) * P2_30
     geph.gamn = round(geph.gamn / P2_40) * P2_40
     geph.dtaun = round(geph.dtaun / P2_30) * P2_30
+
+
+# --------------------------------------------------------------------- #
+# demo sky: the synthesized capture that the smoke run and the receiver
+# throughput tools share
+# --------------------------------------------------------------------- #
+DEMO_TOW0 = 352800.0
+
+
+def demo_sky(npresent: int = 12) -> list[dict]:
+    """Truth of the demo sky: PRNs 1..npresent (the reference's 12-satellite
+    demo), each with its receiver-convention Doppler (Hz) and code phase at
+    t=0 (chips)."""
+    return [dict(prn=p, doppler=250.0 * (p % 13) - 1500.0,
+                 code_phase=97.0 * p) for p in range(1, npresent + 1)]
+
+
+def demo_sky_channels(seconds: float, npresent: int = 12) -> list:
+    """SimChannels of :func:`demo_sky` with bit-true LNAV: 6 s of
+    alternating bits (bit sync settles there), then subframes from
+    DEMO_TOW0 + 6 s."""
+    chans = []
+    nframes = int(seconds // 30) + 2
+    for t in demo_sky(npresent):
+        eph = example_eph(prn=t["prn"], week=2200, toe_tow=DEMO_TOW0)
+        frames = lnav_bit_stream(eph, DEMO_TOW0 + 6.0, nframes=nframes)
+        pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
+        chans.append(SimChannel(
+            prn=t["prn"], doppler=t["doppler"], code_phase=t["code_phase"],
+            carr_phase=0.1 * t["prn"], nav_bits=np.concatenate([pad, frames])))
+    return chans
+
+
+def _cpu_only_worker() -> None:
+    # synthesis workers are NumPy-only; pin them off any accelerator
+    import os
+    os.environ["JAX_PLATFORMS"] = "cpu"
+
+
+def _demo_chunk(args) -> np.ndarray:
+    t0, count, seconds, f_sf, f_if, npresent, cn0, seed = args
+    noise = noise_std_for_cn0(1.0, cn0, f_sf, DType.REAL)
+    x = synthesize(demo_sky_channels(seconds, npresent), f_sf, f_if,
+                   DType.REAL, count, noise_std=noise, seed=seed + t0, t0=t0)
+    return quantize_int8(x, 16.0)
+
+
+def write_demo_capture(path: str, seconds: float, f_sf: float, f_if: float,
+                       npresent: int = 12, cn0: float = 46.0,
+                       seed: int = 1000, workers: int | None = None) -> None:
+    """Write ``seconds`` of the demo sky as int8 real IF (the FEND_FILE
+    byte format) to ``path``.  1-s chunks, each seeded from its start
+    sample, are synthesized on spawned worker processes that never open a
+    device; the file is renamed into place when complete."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    n = int(seconds * f_sf)
+    step = int(f_sf)
+    jobs = [(t0, min(step, n - t0), seconds, f_sf, f_if, npresent, cn0, seed)
+            for t0 in range(0, n, step)]
+    workers = workers or max(1, min(len(jobs), (os.cpu_count() or 2) - 2))
+    with open(path + ".tmp", "wb") as f, ProcessPoolExecutor(
+            max_workers=workers, initializer=_cpu_only_worker,
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        for q in ex.map(_demo_chunk, jobs):
+            q.tofile(f)
+    os.replace(path + ".tmp", path)

@@ -4,7 +4,7 @@ The reference runs one pthread per satellite, each serially correlating
 1 ms blocks and updating 2nd-order DLL / 2nd-order PLL + 1st-order FLL
 loops.  Here all channels advance in lockstep as one ``lax.scan`` over
 code periods with a channel-axis state pytree: correlation is a batched
-MXU contraction (ops.correlator), NCO phase carries use the exact
+matrix contraction (ops.correlator), NCO phase carries use the exact
 precomputed-base arithmetic (ops.nco), and the variable per-period block
 length becomes fixed windows + masking.
 

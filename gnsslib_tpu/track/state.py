@@ -61,7 +61,7 @@ class TrackConfig:
     prm1: LoopParams = LoopParams.from_bandwidths(5.0, 30.0, 200.0)
     prm2: LoopParams = LoopParams.from_bandwidths(1.0, 10.0, 50.0)
     # code-replica generation: "table" = quantized-phase rows + contiguous
-    # dynamic_slice (TPU-fast; <=1/512-chip replica phase quantization);
+    # dynamic_slice (<=1/512-chip replica phase quantization);
     # "exact" = per-sample gather bit-matching the reference's rescode
     resample: str = "table"
     # reset the code NCO at bit-sync handoff: the per-period prm1 DLL

@@ -73,7 +73,7 @@ def test_fast_requires_table_and_sync_cadence():
 
 
 def test_fast_diag_matches_xla():
-    """The MXU Gram-diagonal correlator (_taps_diag) matches the XLA
+    """The Gram-diagonal correlator (_taps_diag) matches the XLA
     einsum formulation through the full FastTracker, including I/Q
     bookkeeping, loop-filter updates, and sample accounting.
 
@@ -81,12 +81,10 @@ def test_fast_diag_matches_xla():
     code phase drifts across a chip-commensurate table breakpoint
     (4 samples/chip here) that divergence can flip one period's replica
     by a table quantum, so a couple of isolated one-period excursions
-    are expected and bounded rather than forbidden (same behaviour as
-    pallas-vs-xla on long runs)."""
+    are expected and bounded rather than forbidden."""
     trk, st, block = _locked_state()
-    fx = FastTracker(trk, use_pallas=False)
-    fd = FastTracker(trk, use_pallas=False)
-    fd.corr = "diag"
+    fx = FastTracker(trk, corr="xla")
+    fd = FastTracker(trk, corr="diag")
     _, out_x = fx.run_block(st, block, 600)
     _, out_d = fd.run_block(st, block, 600)
     assert np.array_equal(out_x.loc, out_d.loc)
@@ -105,62 +103,34 @@ def test_fast_diag_matches_xla():
 
 
 def test_fast_fused_and_diag2_match_diag():
-    """The fused Pallas mix+Gram kernel (interpret mode on CPU) and the
-    single-dot diag2 formulation match the two-dot diag correlator
-    through the full FastTracker: same windows, same split-Gram layout,
-    same extractor — only summation order and one bf16 rounding site
-    differ.  Uses the non-128-multiple row count (K=33 -> padded to 64)
-    so the padding paths are exercised.  band-interpret runs the
-    band-resident kernel (in-kernel window fetch from the VMEM-resident
-    row-phase planes) through the Pallas interpreter — the backend with
-    the most novel indexing gets the same equivalence gate."""
+    """The single-dot diag2 formulation matches the two-dot diag
+    correlator through the full FastTracker: same windows, same
+    split-Gram layout, same extractor — only summation order and one
+    bf16 rounding site differ."""
     trk, st, block = _locked_state()
-    fd = FastTracker(trk, use_pallas=False)
-    fd.corr = "diag"
+    fd = FastTracker(trk, corr="diag")
     _, out_d = fd.run_block(st, block, 600)
     scale = np.max(np.abs(out_d.ip))
-    for corr in ("fused-interpret", "diag2", "band-interpret"):
-        fv = FastTracker(trk, use_pallas=False)
-        fv.corr = corr
-        _, out_v = fv.run_block(st, block, 600)
-        assert np.array_equal(out_d.loc, out_v.loc), corr
-        for a, b in ((out_d.ip, out_v.ip), (out_d.qp, out_v.qp)):
-            d = np.abs(a - b)
-            outliers = int(np.sum(d > 5e-3 * scale))
-            assert outliers <= 3, (corr, outliers, float(d.max()))
-            assert np.median(d) < 1e-3 * scale, corr
-            c = np.corrcoef(a[:, 0], b[:, 0])[0, 1]
-            assert c > 0.999, (corr, c)
-        np.testing.assert_allclose(out_d.dcarr, out_v.dcarr, atol=0.5)
-
-
-def test_fast_band_out_of_band_raises():
-    """A channel geometry whose window starts exceed the VMEM-resident
-    band (channel spread beyond one code period) must be flagged in
-    telemetry and raised at collect, not silently produce wrong taps."""
-    trk, st, block = _locked_state()
-    trk2 = Tracker(CFG, [7, 8], [CodeType.L1CA] * 2, F_SF, F_IF,
-                   DType.REAL)
-    st2 = trk2.init_state()
-    # band span is ~(L+1)*n_nom + nwin + 512 samples; separate the two
-    # channels by far more than that so the second start falls outside
-    spread = (trk2.n_nom * 14)
-    st2 = trk2.start_channels(st2, [0, 1], [800, 800 + spread],
-                              [-900.0, -900.0])
-    for c in range(2):
-        st2 = trk2.set_bit_sync(st2, c, 0)
-    fb = FastTracker(trk2, use_pallas=False)
-    fb.corr = "band-interpret"
-    with pytest.raises(RuntimeError, match="band"):
-        fb.run_block(st2, block, 10)
+    fv = FastTracker(trk, corr="diag2")
+    _, out_v = fv.run_block(st, block, 600)
+    assert np.array_equal(out_d.loc, out_v.loc)
+    for a, b in ((out_d.ip, out_v.ip), (out_d.qp, out_v.qp)):
+        d = np.abs(a - b)
+        outliers = int(np.sum(d > 5e-3 * scale))
+        assert outliers <= 3, (outliers, float(d.max()))
+        assert np.median(d) < 1e-3 * scale
+        c = np.corrcoef(a[:, 0], b[:, 0])[0, 1]
+        assert c > 0.999, c
+    np.testing.assert_allclose(out_d.dcarr, out_v.dcarr, atol=0.5)
 
 
 def test_fast_band_tolerates_inactive_channels():
     """An unlocked channel's block-relative loc runs far negative (rebase
     subtracts the advance every block whether or not the channel is
-    active) — the band backend must clamp those windows and exclude them
-    from the out-of-band flag, matching diag on the active channel
-    (receivers track 12 of 32 configured PRNs all day)."""
+    active) — the GPU's default correlator must still match the xla
+    reference on the active channel (receivers track 12 of 32 configured
+    PRNs all day)."""
+    from gnsslib_tpu.track.fast import default_corr
     trk, st, block = _locked_state()
     trk2 = Tracker(CFG, [7, 8], [CodeType.L1CA] * 2, F_SF, F_IF,
                    DType.REAL)
@@ -170,30 +140,129 @@ def test_fast_band_tolerates_inactive_channels():
     st2 = trk2.rebase(st2, 40 * trk2.n_nom)
     st2 = trk2.start_channels(st2, [0], [800], [-900.0])
     st2 = trk2.set_bit_sync(st2, 0, 0)
-    outs = {}
-    for corr in ("diag", "band-interpret"):
-        f = FastTracker(trk2, use_pallas=False)
-        f.corr = corr
-        _, outs[corr] = f.run_block(st2, block, 100)    # must not raise
-    a, b = outs["diag"], outs["band-interpret"]
+    outs = []
+    for corr in ("xla", default_corr("gpu", trk2.smax)):
+        f = FastTracker(trk2, corr=corr)
+        outs.append(f.run_block(st2, block, 100)[1])    # must not raise
+    a, b = outs
     np.testing.assert_array_equal(a.loc[:, 0], b.loc[:, 0])
     scale = np.max(np.abs(a.ip[:, 0])) or 1.0
     assert np.median(np.abs(a.ip[:, 0] - b.ip[:, 0])) < 1e-3 * scale
 
 
 def test_corr_setter_rejects_wide_split_geometry():
-    """Backends built on the 64-lane split-Gram layout (diag2/fused/band)
-    silently drop tap terms when 2*smax > 64; the corr setter must refuse
-    such geometries (ADVICE r3: fast.py _split_D used unconditionally)."""
+    """diag2 is built on the 64-lane split-Gram layout and would silently
+    drop tap terms when 2*smax > 64; the corr setter must refuse such
+    geometries (and any unknown formulation)."""
     wide = TrackConfig(corrn=12, corrd=3, corrp=6)      # smax=36
     trkw = Tracker(wide, [7], [CodeType.L1CA], F_SF, F_IF, DType.REAL)
-    fw = FastTracker(trkw, use_pallas=False)
+    fw = FastTracker(trkw, corr="xla")
     assert 2 * fw.smax > 64
     fw.corr = "diag"                                    # wide-Gram: fine
-    for corr in ("diag2", "fused", "fused-interpret", "band",
-                 "band-interpret"):
-        with pytest.raises(ValueError, match="2\\*smax"):
-            fw.corr = corr
+    with pytest.raises(ValueError, match="2\\*smax"):
+        fw.corr = "diag2"
+    with pytest.raises(ValueError, match="expected one of"):
+        fw.corr = "band"
+
+
+@pytest.mark.parametrize("platform,smax,want", [
+    ("cpu", 4, "xla"), ("gpu", 4, "diag2"), ("gpu", 36, "diag"),
+    ("metal", 4, None)])
+def test_default_corr_by_platform(platform, smax, want):
+    """The CPU runs the plain reference, the GPU the measured winner
+    (diag when the geometry is too wide for the split layout), and an
+    unknown platform is refused rather than defaulted."""
+    from gnsslib_tpu.track.fast import default_corr
+    if want is None:
+        with pytest.raises(ValueError, match="platform"):
+            default_corr(platform, smax)
+    else:
+        assert default_corr(platform, smax) == want
+
+
+def test_fast_default_corr_follows_backend():
+    """FastTracker without ``corr`` takes the platform's default."""
+    import jax
+    from gnsslib_tpu.track.fast import default_corr
+    trk = Tracker(CFG, [7], [CodeType.L1CA], F_SF, F_IF, DType.REAL)
+    assert FastTracker(trk).corr == default_corr(jax.default_backend(),
+                                                 trk.smax)
+
+
+@pytest.mark.gpu
+def test_gpu_default_corr_matches_xla_highest(gpu):
+    """On the card: the default correlator against the xla reference at
+    HIGHEST matmul precision, with the bounds of
+    test_fast_diag_matches_xla (window starts may flip by one sample in
+    isolated periods, as chip_smoke.py bounds them)."""
+    import jax
+    trk, st, block = _locked_state()
+    fd = FastTracker(trk)
+    assert fd.corr in ("diag", "diag2")
+    _, out_d = fd.run_block(st, block, 600)
+    with jax.default_matmul_precision("highest"):
+        _, out_x = FastTracker(trk, corr="xla").run_block(st, block, 600)
+    dloc = np.abs(out_x.loc.astype(np.int64) - out_d.loc)
+    assert dloc.max() <= 1 and np.mean(dloc != 0) <= 0.01, \
+        (int(dloc.max()), float(np.mean(dloc != 0)))
+    scale = np.max(np.abs(out_x.ip))
+    for a, b in ((out_x.ip, out_d.ip), (out_x.qp, out_d.qp)):
+        d = np.abs(a - b)
+        nout = int(np.sum(d > 5e-3 * scale))
+        med = float(np.median(d) / scale)
+        assert nout <= 3 and med < 1e-3, (nout, med)
+    np.testing.assert_allclose(out_x.dcarr, out_d.dcarr, atol=0.5)
+
+
+def test_exact_selections_per_period():
+    """The per-period phase advance reads its table entry exactly: with
+    remcode near a code length (1023 chips) a TF32 one-hot dot would be
+    ~0.5 chip off; the lookup agrees with float64 NumPy to f32 rounding."""
+    from gnsslib_tpu.ops.nco import NSPAN
+    trk = Tracker(CFG, [7], [CodeType.L1CA], F_SF, F_IF, DType.REAL)
+    trk._consts = dict(trk._consts,
+                       code_adv=trk._consts["code_adv"] + 1022.0)
+    st = trk.start_channels(trk.init_state(), [0], [0], [0.0])
+    block = jnp.asarray(np.random.default_rng(1).integers(
+        -8, 8, 3 * NSAMP).astype(np.float32))
+    st1, out = trk.run_block(st, block, 1)
+    n = int(out.n[0, 0])
+    want = np.float64(np.asarray(trk._consts["code_adv"])[
+        0, n - trk.n_nom + NSPAN])
+    got = float(np.asarray(st1.remcode)[0])
+    assert want > 1020.0
+    assert abs(got - want) < 2e-4, (got, want)
+
+
+@pytest.mark.parametrize("sync_offset", [0, 3, 9])
+def test_exact_selections_fast_filter(sync_offset):
+    """The fast path's loop update reads the cumulative tap sums and the
+    update period's code phase at k_c exactly (float64 NumPy reference,
+    remcode near 1023 chips)."""
+    import jax
+    trk = Tracker(CFG, [7], [CodeType.L1CA], F_SF, F_IF, DType.REAL)
+    ft = FastTracker(trk, corr="xla")
+    st = trk.start_channels(trk.init_state(), [0], [0], [0.0])
+    st = trk.set_bit_sync(st, 0, sync_offset)
+    carry = trk._state_to_dict(st)
+    one = lambda t: jax.tree_util.tree_map(lambda a: a[0], t)
+    cc, fc, stc = one(trk._consts), one(ft._fconsts), one(carry)
+    block = jnp.zeros(30 * NSAMP, jnp.float32)
+    geo = ft._geo_only(block, cc, fc, stc)
+    rng = np.random.default_rng(sync_offset)
+    L, T = ft.L, CFG.ntaps
+    rk = (1023.0 - rng.uniform(0, 0.5, L)).astype(np.float32)
+    geo = dict(geo, remcode_k=jnp.asarray(rk))
+    cur_i = rng.normal(0, 300, (L, T)).astype(np.float32)
+    cur_q = rng.normal(0, 300, (L, T)).astype(np.float32)
+    _, out = ft._filter(cc, fc, stc, geo, jnp.asarray(cur_i),
+                        jnp.asarray(cur_q))
+    k_c = int(out["k_c"])
+    assert k_c == (sync_offset - 1) % L
+    assert float(out["remcode_u"]) == float(rk[k_c])
+    want = np.cumsum(cur_i.astype(np.float64), axis=0)[k_c]
+    np.testing.assert_allclose(np.asarray(out["sum_i_u"]), want,
+                               rtol=1e-5, atol=1e-2)
 
 
 def test_fast_diag_matches_xla_iq():
@@ -221,9 +290,8 @@ def test_fast_diag_matches_xla_iq():
     st, _ = trk.run_block(st, block, 300)
     for c in range(C):
         st = trk.set_bit_sync(st, c, 0)
-    fx = FastTracker(trk, use_pallas=False)
-    fd = FastTracker(trk, use_pallas=False)
-    fd.corr = "diag"
+    fx = FastTracker(trk, corr="xla")
+    fd = FastTracker(trk, corr="diag")
     _, out_x = fx.run_block(st, block, 200)
     _, out_d = fd.run_block(st, block, 200)
     assert np.array_equal(out_x.loc, out_d.loc)
@@ -286,27 +354,3 @@ def test_factored_carrier_phase_accuracy():
                            np.sin(ang32, dtype=np.float32) - np.sin(ang))
         assert float(err.max()) < 2.0 * float(err_dir.max()) + 2e-4, \
             (float(err.max()), float(err_dir.max()))
-
-
-def test_fast_pallas_interpret_matches_xla():
-    """The fused Pallas correlator path (interpret mode on CPU) matches
-    the XLA formulation through the full FastTracker."""
-    f_sf = 1.023e6          # 1 sample/chip: small kernel shapes
-    ch = sim.SimChannel(prn=3, doppler=300.0, code_phase=-100.0,
-                        carr_phase=0.1)
-    data = np.asarray(sim.synthesize([ch], f_sf, f_sf / 4, DType.REAL,
-                                     int(0.35 * f_sf)), np.float32)
-    cfg = TrackConfig(corrn=1, corrd=1, corrp=1)
-    trk = Tracker(cfg, [3], [CodeType.L1CA], f_sf, f_sf / 4, DType.REAL)
-    st = trk.init_state()
-    st = trk.start_channels(st, [0], [100], [-300.0])
-    block = jnp.asarray(data)
-    st, _ = trk.run_block(st, block, 200)
-    st = trk.set_bit_sync(st, 0, 0)
-    fx = FastTracker(trk, use_pallas=False)
-    fp = FastTracker(trk, use_pallas="interpret")
-    _, out_x = fx.run_block(st, block, 60)
-    _, out_p = fp.run_block(st, block, 60)
-    assert np.array_equal(out_x.loc, out_p.loc)
-    np.testing.assert_allclose(out_x.ip, out_p.ip, rtol=5e-3, atol=3.0)
-    np.testing.assert_allclose(out_x.dcarr, out_p.dcarr, atol=0.5)

@@ -346,7 +346,7 @@ def test_device_block_cache_latency_ladder(tmp_path):
         np.testing.assert_array_equal(
             np.asarray(cache.get(start, blk)), fe.read(start, blk),
             err_msg=f"start={start}")
-    assert any(r[2] == "evicted" for r in cache._rungs)   # HBM freed
+    assert any(r[2] == "evicted" for r in cache._rungs)   # rung freed
     # revisit an evicted rung (checkpoint resume): exact reload
     np.testing.assert_array_equal(np.asarray(cache.get(0, blk)),
                                   fe.read(0, blk))

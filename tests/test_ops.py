@@ -1,6 +1,6 @@
 """DSP kernel tests: correlation identities against float64 NumPy truth.
 
-These pin the TPU kernel formulations (precomputed-base NCO, masked
+These pin the device kernel formulations (precomputed-base NCO, masked
 batched correlator, power-of-two FFT correlation) to closed-form DSP
 behavior on synthesized signals.
 """
@@ -196,33 +196,3 @@ def test_lagrange_interp_cubic_exact():
     for t in (2.5, 4.1, 7.9):
         z = float(lagrange_interp(x, y, jnp.asarray(t)))
         assert abs(z - (t**3 - 2 * t**2 + 5)) < 1e-3
-
-
-def test_pallas_correlator_interpret():
-    """Fused mixer+correlator kernel vs direct NumPy (interpret mode)."""
-    import numpy as np
-    from gnsslib_tpu.ops.pallas_corr import correlate_windows
-    PI = np.pi
-    B, nwin, smax = 3, 1024, 8
-    offsets = (0, -3, 3, -6, 6)
-    rng = np.random.default_rng(1)
-    win = rng.standard_normal((B, nwin)).astype(np.float32)
-    rc = np.sign(rng.standard_normal((B, nwin + 2 * smax))).astype(np.float32)
-    rem = rng.random(B).astype(np.float32)
-    ftot = (0.25 + 0.001 * rng.random(B)).astype(np.float32)
-    n = np.full(B, nwin - 10, np.int32)
-    out = np.asarray(correlate_windows(
-        jnp.asarray(win), jnp.asarray(rc), jnp.asarray(rem),
-        jnp.asarray(ftot), jnp.asarray(n), offsets, smax, interpret=True))
-    i = np.arange(nwin, dtype=np.float64)
-    for b in range(B):
-        x = float(ftot[b]) * i
-        ph = (x - np.floor(x)) + rem[b]
-        ph -= np.floor(ph)
-        m = (i < n[b]).astype(np.float64)
-        wc = win[b] * np.cos(2 * PI * ph) * m
-        ws = win[b] * np.sin(2 * PI * ph) * m
-        for t, o in enumerate(offsets):
-            rep = rc[b, smax + o:smax + o + nwin]
-            assert abs(out[b, 2 * t] - np.sum(rep * wc)) < 0.2
-            assert abs(out[b, 2 * t + 1] - np.sum(rep * ws)) < 0.2

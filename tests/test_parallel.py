@@ -71,7 +71,7 @@ def test_sharded_fast_tracker_matches_single():
     cfg = TrackConfig(corrn=1, corrd=1, corrp=1)
     prns = list(range(1, C + 1))
     trk = Tracker(cfg, prns, [CodeType.L1CA] * C, F_SF, F_IF, DType.REAL)
-    fast = FastTracker(trk, use_pallas=False)
+    fast = FastTracker(trk, corr="xla")
     mesh = make_mesh(8)
     sfast = ShardedFastTracker(fast, mesh)
     nsteps = 40                       # 4 super-steps of L=10
@@ -143,22 +143,22 @@ def test_sharded_acquirer_doppler_axis_few_channels():
 
 
 def test_sharded_band_correlator_matches_single():
-    """The band-resident correlator runs UNDER shard_map (its shapes key
-    off the local channel count; VMEM footprint is C-independent) and
-    matches the unsharded band program — closes the round-4 silent
-    band->diag downgrade (the fastest kernel now runs multi-chip)."""
+    """The GPU's default correlator runs UNDER shard_map (its shapes key
+    off the local channel count) and matches the unsharded program, and
+    the xla reference to the bf16 bound."""
     from gnsslib_tpu.parallel import ShardedFastTracker
     from gnsslib_tpu.track import FastTracker
+    from gnsslib_tpu.track.fast import default_corr
 
     cfg = TrackConfig(corrn=1, corrd=1, corrp=1)
     prns = list(range(1, C + 1))
     trk = Tracker(cfg, prns, [CodeType.L1CA] * C, F_SF, F_IF, DType.REAL)
-    fast = FastTracker(trk, use_pallas=False)
-    fast.corr = "band-interpret"      # Mosaic interpreter on the CPU mesh
+    corr = default_corr("gpu", trk.smax)
+    fast = FastTracker(trk, corr=corr)
     mesh = make_mesh(8)
     sfast = ShardedFastTracker(fast, mesh)
-    assert sfast.fast.corr == "band-interpret"   # no silent downgrade,
-    assert fast.corr == "band-interpret"         # no caller mutation
+    assert sfast.fast.corr == corr               # no silent downgrade,
+    assert fast.corr == corr                     # no caller mutation
     nsteps = 20                        # 2 super-steps of L=10
     data = _signal(nsteps * trk.n_nom + trk.nwin + 8 * nsteps + 3000)
     block = jnp.asarray(data)
@@ -173,6 +173,10 @@ def test_sharded_band_correlator_matches_single():
     np.testing.assert_array_equal(out_a.loc, out_b.loc)
     np.testing.assert_allclose(np.asarray(st_a.remcode),
                                np.asarray(st_b.remcode), atol=1e-6)
+    _, out_x = FastTracker(trk, corr="xla").run_block(st0, block, nsteps)
+    np.testing.assert_array_equal(out_x.loc, out_b.loc)
+    scale = np.max(np.abs(out_x.ip))
+    assert np.median(np.abs(out_x.ip - out_b.ip)) < 1e-3 * scale
 
 
 def test_sharded_uneven_channels():
@@ -204,7 +208,7 @@ def test_sharded_uneven_channels():
                                np.asarray(st_b.remcode), atol=1e-6)
 
     # fast path, 6 channels / 4 devices, pipelined API included
-    fast = FastTracker(trk, use_pallas=False)
+    fast = FastTracker(trk, corr="xla")
     sfast = ShardedFastTracker(fast, mesh)
     nsteps = 40
     for c in range(cu):
@@ -236,9 +240,7 @@ def test_sharded_uneven_channels():
         np.testing.assert_array_equal(ra.acquired, rb.acquired)
 
 
-def test_receiver_over_mesh_matches_single(tmp_path):
-    """Full Receiver with mesh=: channel-sharded acq + slow + fast engines
-    produce the same events and epochs as the single-device receiver."""
+def _mesh_vs_single(tmp_path, pipeline_acq: bool):
     from gnsslib_tpu.constants import FrontendType
     from gnsslib_tpu.io.frontend import FileFrontend, FrontendSpec
     from gnsslib_tpu.runtime.config import ReceiverConfig, ChannelConfig
@@ -275,11 +277,8 @@ def test_receiver_over_mesh_matches_single(tmp_path):
             fends=[spec], files=[str(path)],
             track=TrackConfig(corrn=4, corrd=2, corrp=2),
             outms=400, rinex=False)
-        # pipeline_acq=False: the sharded acquirer decides synchronously,
-        # so exact equivalence needs the single-device receiver to as well
-        # (async acquisition is covered by test_acq_pipeline_*)
         return Receiver(cfg, FileFrontend(str(path), spec), mesh=mesh,
-                        pipeline_acq=False)
+                        pipeline_acq=pipeline_acq)
 
     rx_m = mk(make_mesh(4))
     rx_s = mk(None)
@@ -288,6 +287,20 @@ def test_receiver_over_mesh_matches_single(tmp_path):
     assert [e[:3] for e in rx_m.events] == [e[:3] for e in rx_s.events]
     assert rx_m.epochs_written == rx_s.epochs_written
     assert sorted(ch.cfg.prn for ch in rx_m.channels if ch.locked) == prns
+
+
+def test_receiver_over_mesh_matches_single(tmp_path):
+    """Full Receiver with mesh=: channel-sharded acq + slow + fast engines
+    produce the same events and epochs as the single-device receiver
+    (synchronous acquisition decisions on both)."""
+    _mesh_vs_single(tmp_path, pipeline_acq=False)
+
+
+def test_receiver_over_mesh_pipelined_acq_matches_single(tmp_path):
+    """With the default pipelined acquisition the mesh receiver decides
+    on the same schedule as one device (the CLI's --devices N and
+    --devices 1 give the same locks, events and epochs)."""
+    _mesh_vs_single(tmp_path, pipeline_acq=True)
 
 
 def test_mixed_cadence_receiver_over_mesh(tmp_path):

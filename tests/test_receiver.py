@@ -370,8 +370,6 @@ def test_acq_pipeline_depth_auto(if_file):
     spans at least two blocks (collect after the search drained), 1 at
     2 s blocks (every block carries a search; deferring collects stacks
     them without measuring faster while costing lock latency)."""
-    import jax
-    jax.config.update("jax_platforms", "cpu")
     from gnsslib_tpu.io.frontend import FileFrontend, FrontendSpec
     from gnsslib_tpu.constants import FrontendType
     from gnsslib_tpu.runtime.config import ReceiverConfig, ChannelConfig
@@ -391,10 +389,8 @@ def test_acq_pipeline_depth_auto(if_file):
         return Receiver(cfg, FileFrontend(str(path), spec),
                         nsteps_per_block=nsteps, **kw)
 
-    # depth 2 at EVERY block size since the background-fetch change:
-    # the decision read starts on a daemon thread at dispatch, so the
-    # k+2 apply joins landed bytes (the round-4 depth-1-at-2s-blocks
-    # rule balanced a main-thread relay wait that no longer exists)
+    # depth 2 at EVERY block size: the decision read starts on a daemon
+    # thread at dispatch, so the k+2 apply joins landed bytes
     assert mk(400).acq_pipeline_depth == 2     # 0.4 s blocks
     assert mk(1000).acq_pipeline_depth == 2    # 1.0 s = ACQSLEEP/2
     assert mk(2000).acq_pipeline_depth == 2    # 2.0 s blocks
@@ -490,8 +486,8 @@ def test_build_receiver_cadence_groups():
 
 def test_bg_fetch_defers_exception_to_scheduled_join():
     """_BgFetch starts the blocking collect at dispatch on a daemon
-    thread but must re-raise a collect-time failure (e.g. the band
-    correlator's out-of-band fail-loud) at the SCHEDULED get(), the
+    thread but must re-raise a collect-time failure (e.g. a device
+    error surfacing in the transfer) at the SCHEDULED get(), the
     same point the synchronous path raised — never swallow it, never
     raise it on the fetch thread."""
     import time
@@ -499,7 +495,7 @@ def test_bg_fetch_defers_exception_to_scheduled_join():
     from gnsslib_tpu.runtime.receiver import _BgFetch
 
     def boom():
-        raise RuntimeError("band out-of-band")
+        raise RuntimeError("device out-of-band")
 
     f = _BgFetch(boom)
     time.sleep(0.05)                 # thread finished; nothing raised yet
@@ -513,3 +509,36 @@ def test_bg_fetch_defers_exception_to_scheduled_join():
     # results come back exactly once, in any join order
     vals = [_BgFetch(lambda v=v: v * 2) for v in range(5)]
     assert [f.get() for f in reversed(vals)] == [8, 6, 4, 2, 0]
+
+
+def test_precompile_failure_surfaces(tmp_path, monkeypatch):
+    """A failure in the background precompile is kept and raised on the
+    main thread at the next step_block — never swallowed."""
+    import time
+
+    from gnsslib_tpu.acquire import Acquirer
+    from gnsslib_tpu.constants import FrontendType
+    from gnsslib_tpu.io.frontend import FileFrontend, FrontendSpec
+    from gnsslib_tpu.runtime.config import ChannelConfig, ReceiverConfig
+    from gnsslib_tpu.runtime.receiver import Receiver
+    from gnsslib_tpu.track.state import TrackConfig
+
+    path = tmp_path / "zeros.bin"
+    np.zeros(int(F_SF), np.int8).tofile(path)
+    spec = FrontendSpec(fend=FrontendType.FILE, f_cf=1.57542e9, f_sf=F_SF,
+                        f_if=F_IF, dtype=DType.REAL)
+    cfg = ReceiverConfig(channels=[ChannelConfig(prn=3)], fends=[spec],
+                         files=[str(path)],
+                         track=TrackConfig(corrn=4, corrd=2, corrp=2),
+                         rinex=False)
+
+    def boom(self, *a, **k):
+        raise RuntimeError("precompile boom")
+    monkeypatch.setattr(Acquirer, "search_dev_start", boom)
+    rx = Receiver(cfg, FileFrontend(str(path), spec), precompile=True)
+    t0 = time.time()
+    while rx._precompile_error is None and time.time() - t0 < 60:
+        time.sleep(0.01)
+    with pytest.raises(RuntimeError, match="precompile boom"):
+        rx.step_block()
+    assert "precompiled" not in rx.timeline

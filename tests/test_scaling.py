@@ -1,9 +1,9 @@
 """Multi-process scaling: correctness demo + efficiency measurement.
 
 BASELINE.md north-star: >=80% scaling efficiency from 1 to >=2 hosts.
-Real multi-TPU-host hardware is unreachable here; these tests run the
-jax.distributed channel-sharded program as 2 coordinated CPU processes
-(the same code path a TPU pod runs) — see tools/scaling_efficiency.py
+These tests run the jax.distributed channel-sharded program as 2
+coordinated CPU processes (the same code path several accelerator hosts
+run) — see tools/scaling_efficiency.py
 for the measurement design (core pinning = fixed per-host resources).
 """
 import os

@@ -139,7 +139,7 @@ def test_inactive_channel_frozen():
 
 
 def test_table_resampler_lock():
-    """The quantized-phase replica table (default, TPU-fast) locks and
+    """The quantized-phase replica table (default) locks and
     tracks the same signal as the exact resampler: clean data channel,
     sub-0.01-chip code alignment, Doppler within the table's NCO dither."""
     doppler = -1850.0

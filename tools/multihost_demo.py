@@ -2,7 +2,8 @@
 
 Demonstrates the multi-host scaling story of SURVEY.md §2.4: each process
 runs the same tracking program on its shard of the global channel axis;
-process 0 plays the sync-thread role.  Run:
+process 0 plays the sync-thread role.  CPU multi-process by design: both
+processes are pinned to the CPU backend and never open a GPU.  Run:
 
     python tools/multihost_demo.py            # spawns both processes
 
@@ -62,7 +63,7 @@ def worker(pid: int) -> int:
     # steady-state fast path over the same global mesh
     from gnsslib_tpu.parallel import ShardedFastTracker
     from gnsslib_tpu.track import FastTracker
-    fast = FastTracker(trk, use_pallas=False)
+    fast = FastTracker(trk)
     sfast = ShardedFastTracker(fast, mesh)
     for c in range(C):
         st = trk.set_bit_sync(st, c, c % 10)

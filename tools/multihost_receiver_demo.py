@@ -7,7 +7,9 @@ contract): device work executes on each host's channel shard, telemetry
 is allgathered, and the deterministic host logic (framers, epoch
 aligner) replays identically everywhere; process 0 alone plays the
 reference sync-thread role and writes RINEX (src/sdrsync.c:49-135 —
-the reference itself is strictly single-process, SURVEY.md §2.4).
+the reference itself is strictly single-process, SURVEY.md §2.4).  CPU
+multi-process by design: both processes are pinned to the CPU backend
+and never open a GPU.
 
 Run:
 

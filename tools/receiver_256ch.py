@@ -56,7 +56,7 @@ def main() -> int:
         rx = Receiver(cfg, FileFrontend(rxt.CACHE, spec),
                       nsteps_per_block=nsteps, pipeline_depth=depth)
         # post-processing throughput mode (see receiver_throughput.py):
-        # this tool measures the HBM-resident steady state, so keep the
+        # this tool measures the device-resident steady state, so keep the
         # whole-capture prefetch out of the measured window instead of
         # the receiver's default latency-first rung ladder
         from gnsslib_tpu.io.devcache import DeviceBlockCache

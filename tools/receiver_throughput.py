@@ -7,7 +7,9 @@ Unlike bench.py (FastTracker-only device throughput) this includes every
 host-side cost and the acquisition program for never-present PRNs, so it
 is the end-user streaming number.  Compares pipeline=True/False.
 
-The capture is cached under /tmp (3-4 min to synthesize once).
+The capture is the demo sky of gnsslib_tpu.sim, cached under the
+checkout's git-ignored ``.captures/`` (synthesized once, on NumPy worker
+processes that never open a device).
 """
 import os as _os
 import sys as _sys
@@ -24,61 +26,25 @@ F_SF = 16.368e6
 F_IF = 4.092e6
 SECONDS = float(os.environ.get("GNSSLIB_RXBENCH_SECONDS", "20"))
 NPRESENT = 12                      # satellites actually in the signal
-TOW0 = 352800.0
-# capture cache keyed by length (the default 20 s keeps its historical
-# path) so a 40/60 s lifecycle run does not clobber the receiver-session
-# capture other tools share
-CACHE = ("/tmp/gnsslib_rxbench_l1ca_16m.bin" if SECONDS == 20.0 else
-         f"/tmp/gnsslib_rxbench_l1ca_16m_{SECONDS:g}s.bin")
+# capture cache keyed by length, so a 40/60 s lifecycle run does not
+# clobber the receiver-session capture other tools share
+CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".captures", f"rxbench_l1ca_16m_{SECONDS:g}s.bin")
 META = CACHE + ".json"
 
 
-def _chans():
-    from gnsslib_tpu import sim
-    chans = []
-    nframes = max(4, int(SECONDS // 6) + 1)
-    for prn in range(1, NPRESENT + 1):
-        eph = sim.example_eph(prn=prn, week=2200, toe_tow=TOW0)
-        frames = sim.lnav_bit_stream(eph, TOW0 + 6.0, nframes=nframes)
-        pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
-        chans.append(sim.SimChannel(
-            prn=prn, doppler=250.0 * (prn % 13) - 1500.0,
-            code_phase=97.0 * prn, carr_phase=0.1 * prn,
-            nav_bits=np.concatenate([pad, frames])))
-    return chans
-
-
-def _synth_chunk(args):
-    t0, count, noise = args
-    from gnsslib_tpu import sim
-    from gnsslib_tpu.constants import DType
-    x = sim.synthesize(_chans(), F_SF, F_IF, DType.REAL, count,
-                       noise_std=noise, seed=1000 + t0, t0=t0)
-    return t0, sim.quantize_int8(x, 16.0)
-
-
 def synthesize():
-    from concurrent.futures import ProcessPoolExecutor
     from gnsslib_tpu import sim
-    from gnsslib_tpu.constants import DType
     meta = dict(f_sf=F_SF, f_if=F_IF, seconds=SECONDS, n=NPRESENT)
     if os.path.exists(CACHE) and os.path.exists(META):
         if json.load(open(META)) == meta:
             return
-    noise = sim.noise_std_for_cn0(1.0, 46.0, F_SF, DType.REAL)
-    n = int(SECONDS * F_SF)
+    os.makedirs(os.path.dirname(CACHE), exist_ok=True)
     t_start = time.time()
-    step = int(F_SF)
-    jobs = [(t0, min(step, n - t0), noise) for t0 in range(0, n, step)]
-    # chunks are seeded independently -> embarrassingly parallel across
-    # host cores; in-order consumption keeps the writer sequential
-    with open(CACHE + ".tmp", "wb") as f, \
-            ProcessPoolExecutor(max_workers=3) as ex:
-        for t0, q in ex.map(_synth_chunk, jobs):
-            q.tofile(f)
-            print(f"  synth {t0 / F_SF:4.0f}/{SECONDS:.0f} s "
-                  f"({time.time() - t_start:.0f} s)", flush=True)
-    os.replace(CACHE + ".tmp", CACHE)
+    sim.write_demo_capture(CACHE, SECONDS, F_SF, F_IF, npresent=NPRESENT)
+    print(f"  synthesized {SECONDS:.0f} s in {time.time() - t_start:.0f} s",
+          flush=True)
     json.dump(meta, open(META, "w"))
 
 
@@ -109,7 +75,7 @@ def _run(pipeline: bool, nsteps: int, depth: int, rinexdir: str) -> dict:
 
     def throughput_cache(r):
         # post-processing throughput mode: this tool measures the
-        # HBM-resident steady state, so keep the single whole-capture
+        # device-resident steady state, so keep the single whole-capture
         # prefetch (completed during pull-in, outside the measured
         # window) instead of the receiver's default latency-first rung
         # ladder, whose catch-up uploads would land INSIDE the steady
@@ -162,12 +128,9 @@ def _run(pipeline: bool, nsteps: int, depth: int, rinexdir: str) -> dict:
         s["msps_steady"] = ((rx2.base - base_steady) / 1e6
                             / max(time.time() - t_steady, 1e-9))
     if len(block_walls) >= max(8, 4 * depth):
-        # sustainable (p50) rate: the relay interjects multi-second
-        # stragglers that say nothing about the pipeline's sustainable
-        # throughput (a production PCIe attach has none); the median
-        # block wall under back-pressure is the straggler-robust
-        # estimator, the windowed average above the straggler-inclusive
-        # one.  The `depth` fastest walls are pipeline-fill credits
+        # sustainable (p50) rate: the median block wall under
+        # back-pressure is the straggler-robust estimator, the windowed
+        # average above the straggler-inclusive one.  The `depth` fastest walls are pipeline-fill credits
         # (dispatch-only steps), not sustained throughput — drop them;
         # short runs without enough sustained blocks get no p50.
         walls = np.sort(np.asarray(block_walls))[depth:]

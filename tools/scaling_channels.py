@@ -1,6 +1,6 @@
 """Channel-count scaling on one chip: the multi-stream serving headroom.
 
-The 32-channel headline config uses a fraction of the MXU; production
+The 32-channel headline config uses a fraction of the device; production
 serving can batch several independent RF streams (or a denser channel
 set) into one FastTracker.  Measures ms/super-step and aggregate
 channel-samples/s for growing C at the 16.368 Msps envelope.

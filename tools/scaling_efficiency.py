@@ -1,8 +1,7 @@
 """Multi-process scaling-efficiency measurement (CPU mesh).
 
 BASELINE.md's north-star asks >=80% scaling efficiency from 1 to >=2
-hosts.  Real multi-host TPU hardware is not reachable from this
-container, so this tool measures the honest CPU proxy: the SAME
+hosts.  This tool is CPU multi-process by design: it measures the SAME
 channel-sharded steady-state program (parallel.ShardedFastTracker over a
 jax.distributed global mesh) run as
 
@@ -14,8 +13,9 @@ and reports per-device channel-throughput and the efficiency ratio.  The
 steady-state compute path has ZERO cross-device collectives (channels are
 independent — parallel/sharded.py), so efficiency loss can only come from
 dispatch overhead and the one cross-process barrier at result fetch; the
-structure carries to ICI/DCN-connected TPU hosts where the same program
-runs unchanged.
+same program runs unchanged across accelerator hosts.  It never opens a
+GPU (each process is pinned to the CPU backend), so it says nothing about
+GPU speed.
 
 Prints one JSON line:
   {"base_cps", "scaled_cps", "efficiency", "nproc", "per_dev": D, ...}
@@ -68,7 +68,7 @@ def worker(pid: int, nproc: int, coord: str, devices: int, channels: int,
     trk = Tracker(TrackConfig(corrn=4, corrd=2, corrp=2),
                   [(i % 32) + 1 for i in range(C)],
                   [CodeType.L1CA] * C, f_sf, f_if, DType.REAL)
-    fast = FastTracker(trk, use_pallas=False)
+    fast = FastTracker(trk)
     nsamp = trk.n_nom
     block_len = nsteps * nsamp + trk.nwin + 8 * nsteps + 2 * nsamp + 64
     block = jnp.asarray(
